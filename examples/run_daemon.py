@@ -49,12 +49,16 @@ def main():
     ap.add_argument("--demo", action="store_true",
                     help="self-contained demo: spawn a synthetic camera "
                          "client process feeding the daemon over TCP")
-    ap.add_argument("--cpu", action="store_true")
+    ap.add_argument("--cpu", action="store_true",
+                    help="force the CPU backend")
     args = ap.parse_args()
 
     if args.cpu:
         import jax
         jax.config.update("jax_platforms", "cpu")
+    else:
+        from mam3slam_tpu.utils import compile_cache
+        compile_cache.enable()
 
     from mam3slam_tpu import api
     from mam3slam_tpu.io import viewer

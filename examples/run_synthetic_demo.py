@@ -18,12 +18,16 @@ def main():
     ap.add_argument("--out", default="/tmp/mam3slam_demo")
     ap.add_argument("--frames", type=int, default=50)
     ap.add_argument("--cpu", action="store_true",
-                    help="force the CPU backend (skip the TPU)")
+                    help="force the CPU backend (default: JAX's default "
+                         "device, a GPU where there is one)")
     args = ap.parse_args()
 
     if args.cpu:
         import jax
         jax.config.update("jax_platforms", "cpu")
+    else:
+        from mam3slam_tpu.utils import compile_cache
+        compile_cache.enable()
 
     import numpy as np
 

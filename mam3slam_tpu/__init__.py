@@ -1,4 +1,4 @@
-"""mam3slam_tpu — TPU-native centralized multi-agent multi-map visual SLAM.
+"""mam3slam_tpu — JAX-native centralized multi-agent multi-map visual SLAM.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the MAM3SLAM
 reference (ORB-SLAM3-based C++, see SURVEY.md): batched ORB front end,

@@ -1,6 +1,6 @@
 """Batched camera models: Pinhole (+ radial-tangential) and Kannala-Brandt8.
 
-TPU-native replacement for the reference's ``src/CameraModels/``
+JAX-native replacement for the reference's ``src/CameraModels/``
 (``GeometricCamera`` interface at
 ``/root/reference/include/CameraModels/GeometricCamera.h:61-86``:
 project / unproject / projectJac / epipolarConstrain / triangulate).

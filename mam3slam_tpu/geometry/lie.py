@@ -1,6 +1,6 @@
 """Batched Lie-group operations: SO(3), SE(3), Sim(3).
 
-TPU-native replacement for the reference's Sophus layer
+JAX-native replacement for the reference's Sophus layer
 (``/root/reference/Thirdparty/Sophus/sophus/{so3,se3,sim3}.hpp`` — SURVEY.md §1
 layer 1).  Every pose field in the reference is a ``Sophus::SE3f`` /
 ``Sophus::Sim3f``; here poses are flat arrays with arbitrary leading batch
@@ -26,6 +26,9 @@ import jax.numpy as jnp
 # Small-angle cutoff. f32 sqrt(eps) ~ 3.45e-4; squared-angle comparisons below
 # use _EPS on theta^2 so the Taylor branch covers the ill-conditioned region.
 _EPS = 1e-8
+# the small 3x3 products below stay full float32 on every device (a TF32
+# product keeps about three decimal digits)
+_HI = jax.lax.Precision.HIGHEST
 
 
 # ---------------------------------------------------------------------------
@@ -155,7 +158,7 @@ def so3_exp(phi: jnp.ndarray) -> jnp.ndarray:
     safe_sq = jnp.where(small, 1.0, theta_sq)
     theta = jnp.sqrt(safe_sq)
     K = hat(phi)
-    K2 = K @ K
+    K2 = jnp.matmul(K, K, precision=_HI)
     a = jnp.where(small, 1.0 - theta_sq / 6.0, jnp.sin(theta) / theta)
     b = jnp.where(small, 0.5 - theta_sq / 24.0, (1.0 - jnp.cos(theta)) / safe_sq)
     eye = jnp.broadcast_to(jnp.eye(3, dtype=phi.dtype), K.shape)
@@ -185,7 +188,7 @@ def so3_left_jacobian(phi: jnp.ndarray) -> jnp.ndarray:
     safe_sq = jnp.where(small, 1.0, theta_sq)
     theta = jnp.sqrt(safe_sq)
     K = hat(phi)
-    K2 = K @ K
+    K2 = jnp.matmul(K, K, precision=_HI)
     b = jnp.where(small, 0.5 - theta_sq / 24.0, (1.0 - jnp.cos(theta)) / safe_sq)
     c = jnp.where(small, 1.0 / 6.0 - theta_sq / 120.0,
                   (theta - jnp.sin(theta)) / (safe_sq * theta))
@@ -199,7 +202,7 @@ def so3_left_jacobian_inv(phi: jnp.ndarray) -> jnp.ndarray:
     safe_sq = jnp.where(small, 1.0, theta_sq)
     theta = jnp.sqrt(safe_sq)
     K = hat(phi)
-    K2 = K @ K
+    K2 = jnp.matmul(K, K, precision=_HI)
     half_theta = 0.5 * theta
     cot_term = jnp.where(
         small,
@@ -264,14 +267,14 @@ def se3_exp(tangent: jnp.ndarray) -> SE3:
     rho, phi = tangent[..., :3], tangent[..., 3:6]
     q = so3_exp_quat(phi)
     V = so3_left_jacobian(phi)
-    t = jnp.einsum("...ij,...j->...i", V, rho)
+    t = jnp.einsum("...ij,...j->...i", V, rho, precision=_HI)
     return SE3(q, t)
 
 
 def se3_log(a: SE3) -> jnp.ndarray:
     phi = so3_log_quat(a.q)
     Vinv = so3_left_jacobian_inv(phi)
-    rho = jnp.einsum("...ij,...j->...i", Vinv, a.t)
+    rho = jnp.einsum("...ij,...j->...i", Vinv, a.t, precision=_HI)
     return jnp.concatenate([rho, phi], axis=-1)
 
 
@@ -376,7 +379,7 @@ def _sim3_W(phi: jnp.ndarray, sigma: jnp.ndarray) -> jnp.ndarray:
     B = jnp.where(small_sigma, B0, jnp.where(small_theta, B1, B2))
 
     K = hat(phi)
-    K2 = K @ K
+    K2 = jnp.matmul(K, K, precision=_HI)
     eye = jnp.broadcast_to(jnp.eye(3, dtype=dtype), K.shape)
     return (A[..., None, None] * K + B[..., None, None] * K2
             + C[..., None, None] * eye)
@@ -389,7 +392,7 @@ def sim3_exp(tangent: jnp.ndarray) -> Sim3:
     sigma = tangent[..., 6]
     q = so3_exp_quat(phi)
     W = _sim3_W(phi, sigma)
-    t = jnp.einsum("...ij,...j->...i", W, rho)
+    t = jnp.einsum("...ij,...j->...i", W, rho, precision=_HI)
     return Sim3(q, t, jnp.exp(sigma))
 
 

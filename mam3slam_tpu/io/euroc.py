@@ -90,7 +90,7 @@ def frames(seq_dir: str, cam: str = "cam0",
     """Yield (timestamp_s, grayscale f32 [H, W]) frames.
 
     ``backend`` "auto" prefers the native C++ loader (zlib PNG decode on a
-    prefetch thread, native/loader.cc — the TPU build's analog of the
+    prefetch thread, native/loader.cc — this build's analog of the
     reference's C++ ROS image feeders), falling back to cv2.
     """
     import ctypes

@@ -3,15 +3,15 @@
 Parses the reference's OpenCV-FileStorage YAML dialect (leading
 ``%YAML:1.0`` directive, dotted keys) with the same ``File.version`` gate
 (`src/Agent.cc:22-29`), camera sections (Pinhole / KannalaBrandt8 /
-Rectified), ORB parameters, and viewer/load-save sections.
+Rectified), ORB parameters, and viewer/load-save sections.  The dialect is
+read by ``parse_filestorage`` below, so no YAML library is needed.
 """
 
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass, field
 from typing import Optional
-
-import yaml
 
 from mam3slam_tpu.geometry import cameras
 
@@ -72,13 +72,85 @@ def _req(d: dict, key: str):
     return d[key]
 
 
+_NUMBER = re.compile(r"[-+]?(\d+\.?\d*|\.\d+)([eE][-+]?\d+)?$")
+
+
+def _strip_comment(line: str) -> str:
+    """Drop a ``#`` comment that is not inside a quoted string."""
+    quote = None
+    for i, ch in enumerate(line):
+        if quote:
+            if ch == quote:
+                quote = None
+        elif ch in "\"'":
+            quote = ch
+        elif ch == "#":
+            return line[:i]
+    return line
+
+
+def _scalar(text: str):
+    """A FileStorage scalar: quoted string, int, float, or bare word."""
+    text = text.strip()
+    if len(text) >= 2 and text[0] == text[-1] and text[0] in "\"'":
+        return text[1:-1]
+    if _NUMBER.match(text):
+        return float(text) if re.search(r"[.eE]", text) else int(text)
+    return text
+
+
+def parse_filestorage(text: str) -> dict:
+    """Parse the OpenCV-FileStorage YAML dialect of the reference's
+    settings files: the ``%YAML:1.0`` header, ``key: value`` lines with
+    comments, quoted strings and numbers, and indented sub-blocks such as
+    ``!!opencv-matrix`` (``rows``/``cols``/``dt``/``data: [...]``, a flow
+    list that may span lines), which become nested dicts."""
+    d: dict = {}
+    block = None          # dict of the open indented sub-block
+    pending = None        # (target dict, key, text) of an unclosed [ list
+    for raw in text.splitlines():
+        line = _strip_comment(raw).rstrip()
+        if pending is not None:
+            tgt, key, acc = pending
+            acc += " " + line.strip()
+            if "]" in acc:
+                tgt[key] = [_scalar(v) for v in
+                            acc[acc.index("[") + 1:acc.index("]")].split(",")
+                            if v.strip()]
+                pending = None
+            else:
+                pending = (tgt, key, acc)
+            continue
+        if not line.strip() or line.lstrip().startswith(("%", "---")):
+            continue
+        key, sep, val = line.strip().partition(":")
+        if not sep:
+            raise SettingsError(f"not a key: value line: {raw!r}")
+        key, val = key.strip(), val.strip()
+        indented = line[0] in " \t"
+        if indented and block is None:
+            raise SettingsError(f"unexpected indentation: {raw!r}")
+        tgt = block if indented else d
+        if not indented:
+            block = None
+        if val.startswith("!!") or val == "":
+            tgt[key] = block = {}
+        elif val.startswith("["):
+            if "]" in val:
+                tgt[key] = [_scalar(v) for v in val[1:val.index("]")]
+                            .split(",") if v.strip()]
+            else:
+                pending = (tgt, key, val)
+        else:
+            tgt[key] = _scalar(val)
+    if pending is not None:
+        raise SettingsError(f"unterminated list for {pending[1]!r}")
+    return d
+
+
 def load_settings(path: str) -> Settings:
     with open(path) as f:
-        text = f.read()
-    # OpenCV FileStorage dialect: strip the %YAML:1.0 directive line
-    lines = [ln for ln in text.splitlines()
-             if not ln.strip().startswith("%YAML")]
-    d = yaml.safe_load("\n".join(lines)) or {}
+        d = parse_filestorage(f.read())
 
     version = d.get("File.version")
     if version != "1.0":
@@ -86,7 +158,7 @@ def load_settings(path: str) -> Settings:
         raise SettingsError(
             f"unsupported settings version {version!r} (need \"1.0\")")
 
-    cam_type = _req(d, "Camera.type").strip('"')
+    cam_type = str(_req(d, "Camera.type"))
     if cam_type in ("PinHole", "Pinhole"):
         dist = tuple(float(d.get(f"Camera1.{k}", 0.0))
                      for k in ("k1", "k2", "p1", "p2"))

@@ -3,7 +3,7 @@
 Replaces the reference's Pangolin viewers (``src/{MapDrawer, Viewer,
 AgentViewer, MultiAgentViewer}.cc`` — SURVEY.md §2.7) with a matplotlib
 renderer producing PNG snapshots: map points, keyframe frusta, covisibility
-edges, and per-agent trajectories — suitable for headless TPU hosts (no
+edges, and per-agent trajectories — suitable for headless accelerator hosts (no
 GL); the reference's interactive windows don't translate to that setting.
 """
 

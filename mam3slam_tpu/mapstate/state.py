@@ -1,6 +1,6 @@
 """Struct-of-arrays map state: the Atlas / Map / KeyFrame / MapPoint model.
 
-TPU-native replacement for the reference's pointer-graph map data model
+JAX-native replacement for the reference's pointer-graph map data model
 (SURVEY.md §2.3: ``src/{Frame,KeyFrame,MapPoint,Map,Atlas}.cc``).  Design per
 SURVEY.md §7: "state as arrays, not pointer graphs" — fixed-capacity arrays
 with validity masks; culled = mask cleared + slot recycled; IDs are slot
@@ -340,8 +340,8 @@ def refresh_mp_stats(ms: MapState, mp_mask: jnp.ndarray,
 
     # normal + depth bounds from reference KF (first obs) distance
     cam_center = -jax.vmap(
-        lambda q, t: jnp.einsum("ij,j->i",
-                                jnp.transpose(_qmat(q)), t))(
+        lambda q, t: jnp.einsum("ij,j->i", jnp.transpose(_qmat(q)), t,
+                                precision=jax.lax.Precision.HIGHEST))(
         ms.kf_q[kf.reshape(-1)], ms.kf_t[kf.reshape(-1)]).reshape(P, M, 3)
     vec = ms.mp_pos[:, None, :] - cam_center
     dist = jnp.linalg.norm(vec, axis=-1)

@@ -1,17 +1,17 @@
 """Bag-of-words place recognition: vocabulary tree + scoring.
 
-TPU-native replacement for DBoW2 (`Thirdparty/DBoW2`, SURVEY.md §1 layer 3)
+JAX-native replacement for DBoW2 (`Thirdparty/DBoW2`, SURVEY.md §1 layer 3)
 and the KeyFrameDatabase inverted index (``src/KeyFrameDatabase.cc``).
 
 Design (SURVEY.md §7 "DBoW2 -> on-device quantization"):
 * The vocabulary is a flat per-level centroid table: level ``l`` holds
   ``k^(l+1)`` binary centroids; the children of node ``n`` occupy slots
   ``n*k .. n*k+k-1`` of the next level.  Descent is ``L`` batched
-  Hamming-argmin steps (bit-matmul on the MXU) — no pointers, no recursion.
+  Hamming-argmin steps (bf16 bit-matmuls) — no pointers, no recursion.
 * A keyframe's BoW vector is a dense tf-idf array over the ``k^L`` leaves
   (L1-normalized).  With 10k leaves and bf16 this is 20 KB/KF — dense
-  storage beats an inverted index on TPU because scoring all keyframes at
-  once is one [K, W] elementwise reduction.
+  storage beats an inverted index on an accelerator because scoring all
+  keyframes at once is one [K, W] elementwise reduction.
 * ``detect_candidates`` reproduces DetectNBestCandidates semantics: shared
   word-count gating at 0.8x the best, L1 similarity score, exclusion of
   covisibility-connected keyframes, and the loop/merge split by map id.
@@ -376,7 +376,7 @@ def detect_candidates_grouped(scores: jnp.ndarray, shared: jnp.ndarray,
 # regardless of vocabulary size.  The database stores (word ids, values)
 # per KF; scoring all K keyframes against a query is one gather + reduction
 # — O(K*F), independent of W.  (The reference's DBoW2 inverted file solves
-# the same scaling problem on CPU; gathers are the TPU idiom for it.)
+# the same scaling problem on CPU; gathers are the device idiom for it.)
 
 def sparse_bow_row(voc: Vocabulary, words_np: np.ndarray,
                    valid_np: np.ndarray, cap: int):

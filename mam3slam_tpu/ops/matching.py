@@ -1,18 +1,18 @@
 """Batched ORB descriptor matching primitives.
 
-TPU-native replacement for the reference's ``src/ORBmatcher.cc`` (SURVEY.md
+JAX-native replacement for the reference's ``src/ORBmatcher.cc`` (SURVEY.md
 §2.4: 9 search/fuse routines, Hamming distance, TH_HIGH=100 / TH_LOW=50,
 30-bin rotation-consistency histogram).
 
-TPU design: the reference accelerates candidate lookup with a 64x48 frame
+Design: the reference accelerates candidate lookup with a 64x48 frame
 grid and BoW feature-vector buckets because it runs scalar loops on CPU.
-On TPU the idiomatic form is *dense masked* matching: compute the full
-[Q, M] Hamming matrix on the MXU and mask out candidates that fail the
-spatial / level / epipolar predicates.  The Hamming matrix itself uses the
-bit-matmul identity  popcount(a XOR b) = |a| + |b| - 2 a.b  over {0,1}
-bit vectors, which turns descriptor distance into a 256-deep matmul —
-exactly what the MXU is built for (exact in bf16 inputs + f32 accumulation
-since all values are integers <= 256).
+On an accelerator the natural form is *dense masked* matching: compute the
+full [Q, M] Hamming matrix as one matmul and mask out candidates that fail
+the spatial / level / epipolar predicates.  The Hamming matrix itself uses
+the bit-matmul identity  popcount(a XOR b) = |a| + |b| - 2 a.b  over {0,1}
+bit vectors, which turns descriptor distance into a 256-deep bf16 matmul
+on the tensor cores (exact: bf16 inputs, f32 accumulation, all values are
+integers <= 256).
 
 All routines are fixed-shape, mask-aware, and jit/vmap-safe.
 """
@@ -33,10 +33,9 @@ BIG = jnp.int32(1 << 20)
 def unpack_desc(desc: jnp.ndarray) -> jnp.ndarray:
     """[..., 32] uint8 -> [..., 256] bf16 bit matrix (OpenCV bit order).
 
-    Implemented over int32 words: uint8 shift/reshape lowers to sublane
-    relayouts that cost ~15 ms for a single frame on TPU, while the i32
-    path is native VPU work.  Little-endian u8->i32 bitcast preserves the
-    global bit order (bit 32*w + b == byte 4*w + b//8, bit b%8).
+    Implemented over int32 words (one bitcast, then 32 shifts).
+    Little-endian u8->i32 bitcast preserves the global bit order
+    (bit 32*w + b == byte 4*w + b//8, bit b%8).
     """
     words = jax.lax.bitcast_convert_type(
         desc.reshape(desc.shape[:-1] + (8, 4)), jnp.int32)  # [..., 8]
@@ -48,7 +47,8 @@ def unpack_desc(desc: jnp.ndarray) -> jnp.ndarray:
 def hamming_matrix(bits_q: jnp.ndarray, bits_t: jnp.ndarray) -> jnp.ndarray:
     """[Q, 256], [M, 256] bit matrices -> [Q, M] int32 Hamming distances.
 
-    Exact: 0/1 entries are exact in bf16 and the MXU accumulates in f32.
+    Exact: 0/1 entries are exact in bf16 and the product accumulates in
+    f32, so no matmul precision setting can move it.
     """
     pq = jnp.sum(bits_q.astype(jnp.float32), axis=-1)
     pt = jnp.sum(bits_t.astype(jnp.float32), axis=-1)
@@ -80,8 +80,8 @@ def best_in_mask(ham: jnp.ndarray, mask: jnp.ndarray,
     """Best + second-best target per query within an arbitrary candidate
     mask.  ``ham [Q, M]``, ``mask [Q, M]`` bool.
 
-    Implemented as three min/argmin reductions instead of lax.top_k —
-    top_k lowers to a sort on TPU and dominated the matcher's runtime.
+    Implemented as three min/argmin reductions instead of lax.top_k,
+    which lowers to a sort.
     """
     d = jnp.where(mask, ham, BIG)
     i1 = jnp.argmin(d, axis=1).astype(jnp.int32)
@@ -239,7 +239,10 @@ def epipolar_distance_sq(uv1: jnp.ndarray, uv2: jnp.ndarray,
     """
     ones1 = jnp.ones_like(uv1[:, :1])
     x1 = jnp.concatenate([uv1, ones1], axis=-1)  # [N, 3]
-    lines = x1 @ F12.T  # [N, 3] lines in image 2: a x + b y + c = 0
+    # [N, 3] lines in image 2: a x + b y + c = 0.  Full float32: the
+    # distances are compared with a chi2 bound in pixels, and a TF32
+    # product (about three decimal digits) moves them across it.
+    lines = jnp.matmul(x1, F12.T, precision=jax.lax.Precision.HIGHEST)
     a, b, c = lines[:, 0:1], lines[:, 1:2], lines[:, 2:3]
     num = a * uv2[:, 0][None, :] + b * uv2[:, 1][None, :] + c
     den = a * a + b * b

@@ -1,4 +1,4 @@
-"""Batched ORB feature extraction (FAST + oriented rBRIEF), TPU-first.
+"""Batched ORB feature extraction (FAST + oriented rBRIEF) in JAX.
 
 Replaces the reference's ``src/ORBextractor.cc`` (SURVEY.md §2.4): 8-level
 pyramid at scale 1.2, dual-threshold FAST (20/7) per spatial cell, spatial
@@ -6,21 +6,23 @@ redistribution to a per-level budget, intensity-centroid orientation over an
 r=15 circular patch, and 256-bit rBRIEF from the standard ``bit_pattern_31``
 table (stored as data in ``mam3slam_tpu/data/orb_pattern.npy``).
 
-TPU design choices (vs the reference's per-cell scalar loops):
+Design choices (vs the reference's per-cell scalar loops):
+* every level is padded to the level-0 extent and stacked, so each stage
+  (FAST, NMS, blur, gathers) is one batched op over all levels;
 * FAST is evaluated densely as a *score map* (the FAST score is the max
   threshold at which the segment test passes, so one map serves both the
   ini=20 and min=7 thresholds) using 16 shifted image views and rolled
-  window-mins — pure VPU elementwise work, no data-dependent control flow.
-* The octree redistribution is replaced by grid-bucket top-K with a
+  window-mins — elementwise work, no data-dependent control flow;
+* the octree redistribution is replaced by grid-bucket top-K with a
   rank-in-cell penalty: every cell's best corner outranks any cell's
   second-best, reproducing the octree's spatial spreading property
-  (SURVEY.md §7 sanctions this substitution; validated by match quality).
-* IC orientation is computed as two dense moment maps (m10, m01 over the
-  circular patch) via per-row prefix sums and gathered at keypoints —
-  961-pixel patch reductions become O(31) cumsum slices per pixel row.
-* rBRIEF samples the 7x7 sigma=2 blurred level image at integer-rounded
-  rotated pattern offsets via batched gathers; bits pack to the same
-  byte/bit order as OpenCV so descriptors are directly comparable.
+  (SURVEY.md §7 sanctions this substitution; validated by match quality);
+* IC orientation and rBRIEF are element gathers from the stacked pyramid
+  ([N, 31*31] patch taps, [N, 512] rotated pattern taps); bits pack to the
+  same byte/bit order as OpenCV so descriptors are directly comparable.
+
+Every stage has one form on every platform, so the CPU tests check the
+numerics the GPU runs (ops/platform.py).
 
 All shapes are static per `OrbConfig`; outputs are fixed-capacity arrays
 with validity masks (SURVEY.md §7 "capacity padding + masks").
@@ -29,7 +31,6 @@ with validity masks (SURVEY.md §7 "capacity padding + masks").
 from __future__ import annotations
 
 import functools
-import math
 import os
 from dataclasses import dataclass, field
 from typing import NamedTuple, Tuple
@@ -139,66 +140,6 @@ def compute_pyramid(img: jnp.ndarray, cfg: OrbConfig):
     return tuple(levels)
 
 
-def _tent_matrix(m: int, n: int) -> np.ndarray:
-    """[m, n] anti-aliased linear-resize weights (jax.image.resize
-    "bilinear" semantics: tent kernel of radius n/m, edge-renormalized)."""
-    if m == n:
-        return np.eye(n, dtype=np.float32)
-    s = n / m
-    i = np.arange(m, dtype=np.float64)[:, None]
-    j = np.arange(n, dtype=np.float64)[None, :]
-    c = (i + 0.5) * s - 0.5
-    w = np.maximum(0.0, 1.0 - np.abs(j - c) / s)
-    w /= w.sum(axis=1, keepdims=True)
-    return w.astype(np.float32)
-
-
-@functools.lru_cache(maxsize=None)
-def _pyramid_weights(cfg: OrbConfig):
-    """Per-level separable resize weights, stacked and padded to the
-    level-0 extent, with each level's 3-row/col reflect-101 border folded
-    into the weight rows (so the matmul emits the _rpad layout directly).
-
-    Returns (A2 [L*Hp, H] f32, B [L, Wp, W] f32):
-    stack = (A2 @ img).reshape(L, Hp, W) einsum-contracted with B.
-    """
-    L = cfg.n_levels
-    Hp, Wp = cfg.level_sizes[0]
-    A = np.zeros((L, Hp, Hp), np.float32)
-    B = np.zeros((L, Wp, Wp), np.float32)
-    for lv in range(L):
-        h, w = cfg.level_sizes[lv]
-        A[lv, :h, :] = _tent_matrix(h, Hp)
-        B[lv, :w, :] = _tent_matrix(w, Wp)
-        for d in range(1, min(3, Hp - h) + 1):
-            A[lv, h - 1 + d] = A[lv, h - 1 - d]
-        for d in range(1, min(3, Wp - w) + 1):
-            B[lv, w - 1 + d] = B[lv, w - 1 - d]
-    return A.reshape(L * Hp, Hp), B
-
-
-def pyramid_stack_matmul(img: jnp.ndarray, cfg: OrbConfig) -> jnp.ndarray:
-    """All pyramid levels as two MXU matmuls: [L, Hp, Wp] padded stack
-    with reflect-101 borders, each level resized DIRECTLY from level 0
-    with an anti-aliased tent kernel (total scale 1.2^lv).
-
-    Replaces the serial 8-resize cascade (reference ComputePyramid,
-    ORBextractor.cc:1170) on TPU: one [L*Hp, H]x[H, W] matmul plus one
-    L-batched [Hp, W]x[W, Wp] matmul instead of n_levels dependent
-    resizes.  Numerics differ from the cascade (single tent vs composed
-    tents — slightly sharper at high levels); quality is bounded by
-    tests/test_orb.py::test_matmul_pyramid_close_to_cascade.
-    """
-    A2, B = _pyramid_weights(cfg)
-    L = cfg.n_levels
-    Hp, Wp = cfg.level_sizes[0]
-    t = jnp.matmul(jnp.asarray(A2), img,
-                   preferred_element_type=jnp.float32)
-    t = t.reshape(L, Hp, img.shape[1])
-    return jnp.einsum("lpw,lqw->lpq", t, jnp.asarray(B),
-                      preferred_element_type=jnp.float32)
-
-
 def _gaussian_kernel_1d(ksize: int = 7, sigma: float = 2.0) -> np.ndarray:
     r = ksize // 2
     x = np.arange(-r, r + 1, dtype=np.float64)
@@ -210,10 +151,8 @@ def gaussian_blur(img: jnp.ndarray, ksize: int = 7, sigma: float = 2.0):
     """Separable Gaussian blur with reflect-101 border (matches the
     reference's cv::GaussianBlur(7,7,2,2,BORDER_REFLECT_101)).
 
-    Implemented as explicit shifted adds (7+7 taps), not conv: a
-    single-channel 7-tap conv can't tile onto the MXU and lowers to a slow
-    scalar path, while shifted adds are pure VPU elementwise work that XLA
-    fuses into one kernel.  Supports [..., H, W].
+    Implemented as explicit shifted adds (7+7 taps), which XLA fuses into
+    one elementwise kernel.  Supports [..., H, W].
     """
     k = _gaussian_kernel_1d(ksize, sigma)
     r = ksize // 2
@@ -253,7 +192,7 @@ def fast_score_map(img: jnp.ndarray) -> jnp.ndarray:
     # Keep the 16 shifted views as separate slice expressions (NOT stacked/
     # concatenated): a stack forces XLA to materialize [16, ..., H, W]
     # intermediates in HBM; as a flat elementwise DAG over slices of one
-    # padded buffer the whole score fuses into a single VPU kernel.
+    # padded buffer the whole score fuses into a single kernel.
     diffs = [
         jax.lax.slice_in_dim(
             jax.lax.slice_in_dim(pad, 3 + dy, 3 + dy + h, axis=nb),
@@ -404,23 +343,19 @@ def _select_keypoints_stacked(score: jnp.ndarray, cfg: OrbConfig):
     buckets = buckets.reshape(L, hc * wc, cell * cell)
     k = min(cfg.per_cell, cell * cell)
     # per-cell top-k via k iterative (max, argmax, mask) rounds: for tiny k
-    # this is pure VPU reduction work, ~5x cheaper than lax.top_k's
-    # sort-based lowering over the [L, ncells, cell*cell] volume.
-    # On TPU the rounds run in bf16 (the passes are HBM-bandwidth-bound;
-    # bf16 halves the traffic).  bf16 rounding only coarsens the ranking
-    # of near-equal corner scores — which of two ~equal corners wins a
-    # cell slot is already arbitrary.
+    # these are plain reductions, cheaper than lax.top_k's sort-based
+    # lowering over the [L, ncells, cell*cell] volume.  They run in
+    # float32 on every platform (bf16 was no faster on the GPU and would
+    # re-rank near-equal corners).
     vs, is_ = [], []
-    bdt = (jnp.bfloat16 if jax.default_backend() not in ("cpu",)
-           else buckets.dtype)
-    b = buckets.astype(bdt)
+    b = buckets
     lane = jnp.arange(cell * cell, dtype=jnp.int32)[None, None, :]
     for r in range(k):
         i = jnp.argmax(b, axis=-1).astype(jnp.int32)
         vs.append(jnp.max(b, axis=-1).astype(jnp.float32))
         is_.append(i)
         if r + 1 < k:
-            b = jnp.where(lane == i[..., None], jnp.asarray(-jnp.inf, bdt), b)
+            b = jnp.where(lane == i[..., None], -jnp.inf, b)
     top_v = jnp.stack(vs, axis=-1)   # [L, ncells, k]
     top_i = jnp.stack(is_, axis=-1)
 
@@ -461,166 +396,36 @@ def _select_keypoints_stacked(score: jnp.ndarray, cfg: OrbConfig):
     return xy, resp, valid
 
 
-PATCH = 40  # per-keypoint patch extent: covers IC (r=15) + rotated BRIEF (r<=19)
-
-
-def _extract_patches(stack: jnp.ndarray, xy: jnp.ndarray,
-                     lvl: jnp.ndarray):
-    """Per-keypoint PATCHxPATCH windows from the stacked pyramid.
-
-    Implemented as a vmapped ``dynamic_slice`` — XLA lowers a gather of
-    contiguous 2D slices to DMA block copies, which is ~300x faster on TPU
-    than element gathers (the per-element scalar gather pipeline runs at
-    ~7 ns/element).  Start coords clamp to the stacked extent; the true
-    keypoint position inside the patch is returned as (cy, cx).
-    """
-    L, Hp, Wp = stack.shape
-    stack2d = stack.reshape(L * Hp, Wp)
-    r = PATCH // 2 - 1
-    sy = jnp.clip(xy[:, 1] - r, 0, Hp - PATCH)
-    sx = jnp.clip(xy[:, 0] - r, 0, Wp - PATCH)
-
-    def one(row0, col0):
-        return jax.lax.dynamic_slice(stack2d, (row0, col0), (PATCH, PATCH))
-
-    patches = jax.vmap(one)(lvl * Hp + sy, sx)
-    return patches, xy[:, 1] - sy, xy[:, 0] - sx, sy, sx
-
-
-def _extract_patches_pair(raw_stack: jnp.ndarray, blur_stack: jnp.ndarray,
-                          xy: jnp.ndarray, lvl: jnp.ndarray):
-    """One slice-gather serving both the raw (IC) and blurred (BRIEF)
-    patches: the two stacks interleave on the lane axis, so each
-    keypoint's window is a single [PATCH, 2*PATCH] contiguous slice —
-    slice-gather cost on TPU scales with row count, so pairing halves it."""
-    L, Hp, Wp = raw_stack.shape
-    comb = jnp.stack([raw_stack, blur_stack], axis=-1).reshape(
-        L * Hp, 2 * Wp)
-    r = PATCH // 2 - 1
-    sy = jnp.clip(xy[:, 1] - r, 0, Hp - PATCH)
-    sx = jnp.clip(xy[:, 0] - r, 0, Wp - PATCH)
-
-    def one(row0, col0):
-        return jax.lax.dynamic_slice(comb, (row0, col0), (PATCH, 2 * PATCH))
-
-    p = jax.vmap(one)(lvl * Hp + sy, 2 * sx)
-    return (p[..., 0::2], p[..., 1::2],
-            xy[:, 1] - sy, xy[:, 0] - sx, sy, sx)
-
-
-def _ic_angles_patch(patches: jnp.ndarray, cy: jnp.ndarray,
-                     cx: jnp.ndarray) -> jnp.ndarray:
-    """IC orientation from per-keypoint raw patches (exact reference
-    IC_Angle semantics, ORBextractor.cc:76): the r=15 circular window never
-    crosses a level border (detection border 16 > 15), so the moments are
-    masked weighted sums directly over the PATCH window — the circle mask
-    |dx| <= umax[|dy|] is built arithmetically from the 16-entry umax
-    table (unrolled equality sum), avoiding a per-keypoint re-center
-    slice-gather."""
-    umax = _circular_umax()
-    iy = jnp.arange(PATCH, dtype=jnp.int32)
-    dy = iy[None, :, None] - cy[:, None, None]     # [N, P, 1]
-    dx = iy[None, None, :] - cx[:, None, None]     # [N, 1, P]
-    ady = jnp.abs(dy)
-    u = jnp.zeros_like(ady)
-    for k in range(HALF_PATCH + 1):
-        u = u + jnp.where(ady == k, jnp.int32(int(umax[k])), 0)
-    mask = ((ady <= HALF_PATCH) & (jnp.abs(dx) <= u)).astype(patches.dtype)
-    m10 = jnp.sum(patches * (dx.astype(patches.dtype) * mask), axis=(1, 2))
-    m01 = jnp.sum(patches * (dy.astype(patches.dtype) * mask), axis=(1, 2))
-    return jnp.arctan2(m01, m10)
-
-
-def _brief_descriptors_patch(blur_patches: jnp.ndarray, cy: jnp.ndarray,
-                             cx: jnp.ndarray, sy: jnp.ndarray,
-                             sx: jnp.ndarray, hw: jnp.ndarray,
-                             angle: jnp.ndarray) -> jnp.ndarray:
-    """256-bit rBRIEF sampled inside per-keypoint blurred patches.
-
-    The 512 rotated pattern taps are read with two one-hot bf16
-    contractions (row select on the MXU, column select as a masked
-    reduction) instead of an element gather.  Exactness: blurred-and-
-    rounded pixels are integers <= 255, exactly representable in bf16, and
-    a one-hot dot touches exactly one of them — so the sampled values (and
-    the descriptor bits) are bit-identical to a direct gather.
-    Sample coords clip to the keypoint's true level extent `hw` [N, 2]
-    (h, w), matching the reference's border clamping.
-    """
-    n = blur_patches.shape[0]
-    pat = jnp.asarray(_PATTERN, jnp.float32)                   # [256, 4]
-    pxy = jnp.concatenate([pat[:, 0:2], pat[:, 2:4]], axis=0)  # [512, 2]
-    ca, sa = jnp.cos(angle), jnp.sin(angle)
-    px, py = pxy[:, 0], pxy[:, 1]
-    rx = jnp.round(px[None, :] * ca[:, None] - py[None, :] * sa[:, None])
-    ry = jnp.round(px[None, :] * sa[:, None] + py[None, :] * ca[:, None])
-    # global coords clipped to the level extent, then patch-relative
-    gx = jnp.clip((sx + cx)[:, None] + rx.astype(jnp.int32), 0, hw[:, 1:2] - 1)
-    gy = jnp.clip((sy + cy)[:, None] + ry.astype(jnp.int32), 0, hw[:, 0:1] - 1)
-    pr = gy - sy[:, None]                                      # [N, 512]
-    pc = gx - sx[:, None]
-    oh_r = (jnp.arange(PATCH, dtype=jnp.int32)[None, None, :]
-            == pr[:, :, None]).astype(jnp.bfloat16)            # [N, 512, P]
-    rows = jnp.einsum("ncr,nrw->ncw", oh_r,
-                      blur_patches.astype(jnp.bfloat16),
-                      preferred_element_type=jnp.bfloat16)     # [N, 512, P]
-    oh_c = (jnp.arange(PATCH, dtype=jnp.int32)[None, None, :]
-            == pc[:, :, None]).astype(jnp.bfloat16)
-    v = jnp.sum(rows * oh_c, axis=-1).astype(jnp.float32)      # [N, 512]
-    bits = v[:, :256] < v[:, 256:]
-    return pack_bits_256(bits)
-
-
-def _ic_angles_stacked(stack: jnp.ndarray, xy: jnp.ndarray,
-                       lvl: jnp.ndarray) -> jnp.ndarray:
-    """IC orientation from per-row prefix sums of the stacked pyramid.
-
-    Instead of gathering the full 31x31 patch per keypoint (961 scattered
-    HBM reads each), gather 4 prefix-sum values per patch row: the windowed
-    sums  sum I  and  sum x·I  over the circular row extent come from
-    inclusive cumsums C / Cx, so a patch costs 31x4 reads — ~8x less
-    gather traffic, exact same moments (reference IC_Angle,
-    ORBextractor.cc:76).  Keypoints sit >= 16 px inside their level extent
-    (> r=15), so no window ever crosses a level border.
-    """
+def _ic_angles_gather(stack: jnp.ndarray, xy: jnp.ndarray,
+                      lvl: jnp.ndarray) -> jnp.ndarray:
+    """IC orientation (reference IC_Angle, ORBextractor.cc:76) from one
+    [N, 31*31] element gather of each keypoint's patch out of the stacked
+    pyramid, weighted by the circular-mask moment tables.  Keypoints sit
+    >= 16 px inside their level extent (> r=15), so no window crosses a
+    level border; the sums are exact (integer-valued level 0, and every
+    partial sum stays far below 2^24)."""
     L, Hp, Wp = stack.shape
     r = HALF_PATCH
-    umax = _circular_umax()
-    C = jnp.cumsum(stack, axis=2)
-    Cx = jnp.cumsum(stack * jnp.arange(Wp, dtype=stack.dtype)[None, None, :],
-                    axis=2)
-    dy = jnp.arange(-r, r + 1, dtype=jnp.int32)          # [31]
-    u = jnp.asarray(umax[np.abs(np.arange(-r, r + 1))], jnp.int32)
-    x = xy[:, 0][:, None]
-    y = xy[:, 1][:, None]
-    rows = jnp.clip(y + dy[None, :], 0, Hp - 1)           # [N, 31]
-    hi = jnp.clip(x + u[None, :], 0, Wp - 1)
-    lo = jnp.clip(x - u[None, :] - 1, -1, Wp - 1)
-    base = (lvl[:, None] * Hp + rows) * Wp
-    lo_ok = (lo >= 0).astype(stack.dtype)
-    # ONE gather for all four operand sets: XLA's TPU gather has ~1 ms
-    # fixed cost per op regardless of element count, so C-hi/C-lo/Cx-hi/
-    # Cx-lo come from a single [N, 124] take on the concatenated sources
-    n_el = L * Hp * Wp
-    src = jnp.concatenate([C.reshape(-1), Cx.reshape(-1)])
-    idx = jnp.concatenate(
-        [base + hi, base + jnp.maximum(lo, 0),
-         n_el + base + hi, n_el + base + jnp.maximum(lo, 0)], axis=1)
-    g = jnp.take(src, idx)                                # [N, 124]
-    n31 = dy.shape[0]
-    sumI = g[:, :n31] - lo_ok * g[:, n31:2 * n31]
-    sumXI = g[:, 2 * n31:3 * n31] - lo_ok * g[:, 3 * n31:]
-    m10 = jnp.sum(sumXI - x.astype(stack.dtype) * sumI, axis=1)
-    m01 = jnp.sum(dy[None, :].astype(stack.dtype) * sumI, axis=1)
+    wx_np, wy_np = _ic_weight_tables()
+    d = np.arange(-r, r + 1)
+    offs = jnp.asarray((d[:, None] * Wp + d[None, :]).reshape(-1), jnp.int32)
+    base = (lvl * Hp + xy[:, 1]) * Wp + xy[:, 0]
+    patch = jnp.take(stack.reshape(-1), base[:, None] + offs[None, :],
+                     mode="clip")                         # [N, 961]
+    m10 = jnp.sum(patch * jnp.asarray(wx_np.reshape(-1))[None], axis=1)
+    m01 = jnp.sum(patch * jnp.asarray(wy_np.reshape(-1))[None], axis=1)
     return jnp.arctan2(m01, m10)
 
 
-def _brief_descriptors_stacked(blur_stack: jnp.ndarray, xy: jnp.ndarray,
-                               lvl: jnp.ndarray, hw: jnp.ndarray,
-                               angle: jnp.ndarray) -> jnp.ndarray:
+def _brief_descriptors_gather(blur_stack: jnp.ndarray, xy: jnp.ndarray,
+                              lvl: jnp.ndarray, hw: jnp.ndarray,
+                              angle: jnp.ndarray) -> jnp.ndarray:
     """256-bit rBRIEF over the stacked blurred pyramid: one flat gather of
-    [N, 512] samples (vs one [budget, 512] gather per level).  Sample
-    coords clip to each keypoint's true level extent `hw` [N, 2] (h, w),
-    matching the per-level clipping of the unstacked path."""
+    [N, 512] samples at the integer-rounded rotated pattern offsets.
+    Sample coords clip to each keypoint's true level extent `hw` [N, 2]
+    (h, w), matching the reference's border clamping.  Returns [N, 32]
+    uint8 in OpenCV bit order (bit k of byte j compares pattern pair
+    8j+k)."""
     L, Hp, Wp = blur_stack.shape
     pat = jnp.asarray(_PATTERN, jnp.float32)              # [256, 4]
     pxy = jnp.concatenate([pat[:, 0:2], pat[:, 2:4]], axis=0)  # [512, 2]
@@ -639,9 +444,10 @@ def _brief_descriptors_stacked(blur_stack: jnp.ndarray, xy: jnp.ndarray,
 
 @functools.lru_cache(maxsize=None)
 def _pack_matrix():
-    """[256, 16] f32: pack 256 bits into 16 u16 words on the MXU.  Exact in
-    f32 (word values < 2^16 < 2^24); little-endian u16 -> u8 bitcast yields
-    the OpenCV byte/bit order (bit 16w+b == byte 2w+b//8, bit b%8)."""
+    """[256, 16] f32: pack 256 bits into 16 u16 words with one matmul.
+    Exact at any matmul precision (0/1 times powers of two, word values
+    < 2^16); little-endian u16 -> u8 bitcast yields the OpenCV byte/bit
+    order (bit 16w+b == byte 2w+b//8, bit b%8)."""
     P = np.zeros((256, 16), np.float32)
     for p in range(256):
         P[p, p // 16] = float(1 << (p % 16))
@@ -649,8 +455,7 @@ def _pack_matrix():
 
 
 def pack_bits_256(bits: jnp.ndarray) -> jnp.ndarray:
-    """[N, 256] bool -> [N, 32] uint8 descriptor bytes via one MXU matmul
-    (a shift/accumulate pack costs ~1 ms of sublane relayouts on TPU)."""
+    """[N, 256] bool -> [N, 32] uint8 descriptor bytes via one matmul."""
     w = jnp.dot(bits.astype(jnp.float32), jnp.asarray(_pack_matrix()),
                 preferred_element_type=jnp.float32)
     w16 = w.astype(jnp.uint16)
@@ -659,7 +464,7 @@ def pack_bits_256(bits: jnp.ndarray) -> jnp.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# orientation (intensity centroid via moment conv maps)
+# orientation tables (intensity centroid)
 # ---------------------------------------------------------------------------
 
 def _circular_umax() -> np.ndarray:
@@ -688,107 +493,6 @@ def _ic_weight_tables():
     ys, xs = np.mgrid[-r: r + 1, -r: r + 1]
     mask = np.abs(xs) <= umax[np.abs(ys)]
     return ((xs * mask).astype(np.float32), (ys * mask).astype(np.float32))
-
-
-def ic_angles(img: jnp.ndarray, xy: jnp.ndarray) -> jnp.ndarray:
-    """IC orientation at integer keypoints via patch gathers.
-
-    The production path inside extract_orb: one [N, 31, 31] gather + two
-    weighted reductions per level (vs ~500 cumsum kernels for the dense
-    moment maps — the dense form below remains for full-image analyses).
-    """
-    r = HALF_PATCH
-    h, w = img.shape
-    wx_np, wy_np = _ic_weight_tables()
-    wx, wy = jnp.asarray(wx_np), jnp.asarray(wy_np)
-    dy, dx = jnp.mgrid[-r: r + 1, -r: r + 1]
-    gy = jnp.clip(xy[:, 1, None, None] + dy[None], 0, h - 1)
-    gx = jnp.clip(xy[:, 0, None, None] + dx[None], 0, w - 1)
-    patch = img[gy, gx]  # [N, 31, 31]
-    m10 = jnp.sum(patch * wx[None], axis=(1, 2))
-    m01 = jnp.sum(patch * wy[None], axis=(1, 2))
-    return jnp.arctan2(m01, m10)
-
-
-def orientation_maps(img: jnp.ndarray):
-    """m10/m01 moment maps over the circular r=15 patch; gathering these at
-    a keypoint gives its IC angle (reference IC_Angle, ORBextractor.cc:76).
-
-    Implemented with per-row prefix sums instead of a 31x31 convolution:
-    for each of the 31 patch rows, the windowed sums  sum I  and
-    sum (x-xc) I  come from two cumulative sums and four slices — exact,
-    O(31*H*W) elementwise work, and (unlike a large single-channel conv,
-    which takes the TPU compiler minutes to lower) compiles in seconds.
-    Border pixels are truncated, which is irrelevant: keypoints live inside
-    the EDGE_THRESHOLD=19 > r=15 border.
-    """
-    r = HALF_PATCH
-    umax = _circular_umax()
-    h, w = img.shape
-    pad = jnp.pad(img, ((r, r), (r, r)))  # zero pad
-    xs_abs = jnp.arange(w + 2 * r, dtype=img.dtype)
-    xc = jnp.arange(w, dtype=img.dtype) + r  # padded center coords
-
-    m10 = jnp.zeros_like(img)
-    m01 = jnp.zeros_like(img)
-    for dy in range(-r, r + 1):
-        u = int(umax[abs(dy)])
-        row = pad[r + dy: r + dy + h, :]             # [H, W+2r]
-        C = jnp.cumsum(row, axis=1)
-        Cx = jnp.cumsum(row * xs_abs[None, :], axis=1)
-        hi = r + u
-        lo = r - u - 1
-        sumI = C[:, hi: hi + w] - (C[:, lo: lo + w] if lo >= 0
-                                   else jnp.pad(C[:, : lo + w],
-                                                ((0, 0), (-lo, 0))))
-        sumXI = Cx[:, hi: hi + w] - (Cx[:, lo: lo + w] if lo >= 0
-                                     else jnp.pad(Cx[:, : lo + w],
-                                                  ((0, 0), (-lo, 0))))
-        m10 = m10 + (sumXI - xc[None, :] * sumI)
-        m01 = m01 + dy * sumI
-    return m10, m01
-
-
-# ---------------------------------------------------------------------------
-# rBRIEF descriptors
-# ---------------------------------------------------------------------------
-
-def brief_descriptors(img_blur: jnp.ndarray, xy: jnp.ndarray,
-                      angle: jnp.ndarray) -> jnp.ndarray:
-    """256-bit rBRIEF at integer keypoints with per-keypoint rotation.
-
-    img_blur: [H, W] blurred level image; xy: [N, 2] int32 (x, y) level
-    coords; angle: [N] radians.  Returns [N, 32] uint8 in OpenCV bit order
-    (bit k of byte j compares pattern pair 8j+k).
-    """
-    h, w = img_blur.shape
-    pat = jnp.asarray(_PATTERN, jnp.float32)  # [256, 4]
-    pa = pat[:, 0:2]  # x1, y1
-    pb = pat[:, 2:4]
-    ca, sa = jnp.cos(angle), jnp.sin(angle)  # [N]
-
-    def rot(p):  # [256, 2] -> [N, 256, 2] rotated integer offsets
-        px, py = p[:, 0], p[:, 1]
-        rx = jnp.round(px[None, :] * ca[:, None] - py[None, :] * sa[:, None])
-        ry = jnp.round(px[None, :] * sa[:, None] + py[None, :] * ca[:, None])
-        return rx.astype(jnp.int32), ry.astype(jnp.int32)
-
-    def sample(rx, ry):
-        gx = jnp.clip(xy[:, 0:1] + rx, 0, w - 1)
-        gy = jnp.clip(xy[:, 1:2] + ry, 0, h - 1)
-        return img_blur[gy, gx]  # [N, 256]
-
-    va = sample(*rot(pa))
-    vb = sample(*rot(pb))
-    bits = (va < vb)  # [N, 256] bool
-    # pack via uint32 words, not uint8 arithmetic: u8 shift/accumulate
-    # lowers to sublane relayouts costing ~15 ms/frame on TPU, while u32
-    # shifts are native; little-endian u32->u8 bitcast preserves the
-    # OpenCV byte/bit order (bit 32w+b == byte 4w+b//8, bit b%8).
-    shifts = jnp.arange(32, dtype=jnp.uint32)
-    words = jnp.sum(bits.reshape(-1, 8, 32).astype(jnp.uint32)
-                    << shifts[None, None, :], axis=-1).astype(jnp.uint32)
-    return jax.lax.bitcast_convert_type(words, jnp.uint8).reshape(-1, 32)
 
 
 # ---------------------------------------------------------------------------
@@ -823,13 +527,8 @@ def extract_orb(img: jnp.ndarray, cfg: OrbConfig) -> Features:
         x = jnp.pad(x, ((0, ry), (0, rx)), mode="reflect")
         return jnp.pad(x, ((0, Hp - h - ry), (0, Wp - w - rx)))
 
-    if (jax.default_backend() not in ("cpu",)
-            and not os.environ.get("MAM3_DISABLE_MM_PYRAMID")):
-        # two MXU matmuls instead of a serial resize cascade
-        stack = pyramid_stack_matmul(img, cfg)
-    else:
-        pyr = compute_pyramid(img, cfg)
-        stack = jnp.stack([_rpad(pyr[lv], lv) for lv in range(L)])
+    pyr = compute_pyramid(img, cfg)
+    stack = jnp.stack([_rpad(pyr[lv], lv) for lv in range(L)])
 
     score = fast_score_map(stack)
     xy_i, resp, valid = _select_keypoints_stacked(score, cfg)
@@ -837,49 +536,11 @@ def extract_orb(img: jnp.ndarray, cfg: OrbConfig) -> Features:
     lvl = jnp.asarray(lvl_np)
     # Round the blurred image to the integer grid: camera images are
     # uint8, and rounding brings descriptors to near-bit-exact parity with
-    # OpenCV ORB
-    # (ties in pattern-pair comparisons resolve identically).
+    # OpenCV ORB (ties in pattern-pair comparisons resolve identically).
     blur_stack = jnp.round(gaussian_blur(stack))
-    N = xy_i.shape[0]
-    # fused Pallas path (TPU): DMA-pipelined patch fetch + IC + BRIEF in
-    # one kernel (ops/pallas_orb_desc.py); the XLA path below is the
-    # CPU/parity reference.  Mosaic needs tile-aligned dynamic DMA
-    # origins (8 rows / 128 lanes), so the stacks are zero-padded to
-    # aligned extents here (XLA fuses the pad into the stack producers).
-    if (jax.default_backend() not in ("cpu",) and Hp >= 48
-            and not os.environ.get("MAM3_DISABLE_FUSED_DESC")):
-        from mam3slam_tpu.ops import pallas_orb_desc as POD
-
-        Hp2 = -(-Hp // 8) * 8
-        Wp2 = max(-(-Wp // 128) * 128, 256)
-        stk = jnp.pad(stack, ((0, 0), (0, Hp2 - Hp), (0, Wp2 - Wp)))
-        blr = jnp.pad(blur_stack, ((0, 0), (0, Hp2 - Hp), (0, Wp2 - Wp)))
-        pad = (-N) % POD.CHUNK
-        xk = jnp.pad(xy_i[:, 0], (0, pad))
-        yk = jnp.pad(xy_i[:, 1], (0, pad))
-        lv = jnp.pad(lvl, (0, pad))
-        y0, wsx = POD.window_origins(yk, xk, Hp2, Wp2)
-        hw = jnp.asarray(hws_np)[lv]
-        z = jnp.zeros_like(xk)
-        meta = jnp.stack([yk, xk, y0, wsx, hw[:, 0], hw[:, 1], z, z],
-                         axis=-1).astype(jnp.int32)
-        dma_s = jnp.stack([(lv * Hp2 + y0) // 8, wsx // 128],
-                          axis=0).astype(jnp.int32)
-        patf = jnp.asarray(_PATTERN, jnp.float32)
-        pat4 = jnp.zeros((4, 512), jnp.float32)
-        pat4 = pat4.at[0].set(jnp.concatenate([patf[:, 0], patf[:, 2]]))
-        pat4 = pat4.at[1].set(jnp.concatenate([patf[:, 1], patf[:, 3]]))
-        ang, bits = POD.ic_brief_fused(
-            stk.reshape(L * Hp2, Wp2), blr.reshape(L * Hp2, Wp2),
-            dma_s, meta, pat4)
-        ang = ang[:N]
-        desc = pack_bits_256(bits[:N] > 0.5)
-    else:
-        raw_patches, blur_patches, cy, cx, sy, sx = _extract_patches_pair(
-            stack, blur_stack, xy_i, lvl)
-        ang = _ic_angles_patch(raw_patches, cy, cx)
-        desc = _brief_descriptors_patch(blur_patches, cy, cx, sy, sx,
-                                        jnp.asarray(hws_np), ang)
+    ang = _ic_angles_gather(stack, xy_i, lvl)
+    desc = _brief_descriptors_gather(blur_stack, xy_i, lvl,
+                                     jnp.asarray(hws_np), ang)
     xy = xy_i.astype(jnp.float32) * jnp.asarray(scales_np)[:, None]
     level = lvl
 

@@ -4,7 +4,7 @@ The multi-chip scaling story of the framework (SURVEY.md §2.6/§2.8 and
 BASELINE.md "4-agent centralized BA across 2 hosts"): observation edges are
 sharded across devices along a mesh axis; every per-edge computation runs
 locally and the per-vertex reductions (gradients, Hessian blocks, Schur
-products) become ``psum`` collectives over ICI.  Camera and point state is
+products) become ``psum`` collectives over the interconnect.  Camera and point state is
 replicated — it is tiny compared to edges — so the PCG loop is pure local
 compute + one psum per matrix-vector product.
 
@@ -78,7 +78,7 @@ def dist_run_ba(problem: ba_mod.BAProblem, mesh: Mesh, kind: int,
 
 def batched_pose_optimization(mesh: Mesh, kind: int, axis: str = "agent"):
     """Returns a jitted fn optimizing N agents' frame poses in parallel,
-    with the agent batch sharded over ``mesh[axis]`` (the TPU form of the
+    with the agent batch sharded over ``mesh[axis]`` (the batched form of the
     reference's per-agent Tracking threads, SURVEY.md §2.8 item 1).
 
     fn(q0 [N,4], t0 [N,3], cam_params [N,8], pts [N,M,3], uv [N,M,2],
@@ -88,7 +88,7 @@ def batched_pose_optimization(mesh: Mesh, kind: int, axis: str = "agent"):
 
     vmapped = jax.vmap(
         lambda q0, t0, cp, pts, uv, w, valid: ba_mod.pose_optimization(
-            q0, t0, cp, kind, pts, uv, w, valid, use_pallas=False))
+            q0, t0, cp, kind, pts, uv, w, valid, use_kernel=False))
 
     @jax.jit
     def fn(q0, t0, cam_params, pts, uv, w, valid):

@@ -1,7 +1,7 @@
 """Distributed dense window BA: owner-partitioned Schur over a mesh.
 
-Multi-chip form of ``solvers/ba_window.py`` (SURVEY.md §2.6 "BA reductions
--> psum over ICI", §2.8 "Schur-block parallelism"; BASELINE.md 4-agent /
+Multi-device form of ``solvers/ba_window.py`` (SURVEY.md §2.6 "BA
+reductions -> psum", §2.8 "Schur-block parallelism"; BASELINE.md 4-agent /
 2-host scaling target).  The round-2 edge-sharded solver replicated ALL
 vertex state and psum'd arena-sized arrays every CG step — every device
 re-did the per-point Schur elimination, so adding devices added work.
@@ -455,12 +455,12 @@ def dist_run_window_ba_dense(prob: bw.WindowProblem, mesh: Mesh, kind: int,
     vs ``dist_run_window_ba`` (implicit-Schur CG): that path pays 2
     ``all_gather`` per CG matvec (~60 collectives per LM iteration);
     latency-dominated on small messages, it stopped scaling past 2
-    devices (round-3 MULTICHIP_SCALING).  Here communication per LM
+    devices (measured on a virtual CPU mesh).  Here communication per LM
     iteration is one fused ~(6Kc)^2-float reduction regardless of edge
     count, so per-device work is O(E/n + Pw/n + Kc^2) with an O(Kc^3)
     replicated Cholesky tail (Amdahl term; negligible for Kc <= 256).
-    Reference mapping: SURVEY §2.6 "BA reductions -> psum over ICI"
-    (g2o's single-threaded sparse LM, src/Optimizer.cc:1116)."""
+    Reference mapping: SURVEY §2.6 "BA reductions -> psum" (g2o's
+    single-threaded sparse LM, src/Optimizer.cc:1116)."""
     n = mesh.shape[axis]
     prob = pad_problem(prob, n)
     runner = _make_dense_runner(mesh, kind, axis, iters,
@@ -586,8 +586,8 @@ def dist_run_window_ba_psum(prob: bw.WindowProblem, mesh: Mesh, kind: int,
     ``dist_run_window_ba`` (camera-sharded CG): that path all_gathers the
     [Pw, 3] point increments every matvec (O(Pw) bytes, 2 collectives);
     here the point halves never leave their owner.  Reference mapping:
-    SURVEY §2.6 "BA reductions -> psum over ICI"; g2o's single-threaded
-    sparse LM (/root/reference/src/Optimizer.cc:1116)."""
+    SURVEY §2.6 "BA reductions -> psum"; g2o's single-threaded sparse LM
+    (/root/reference/src/Optimizer.cc:1116)."""
     n = mesh.shape[axis]
     sp, inv_perm = shard_problem_for_psum(prob, n)
     runner = _make_psum_runner(mesh, kind, axis, iters, cg_iters,

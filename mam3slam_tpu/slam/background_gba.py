@@ -1,6 +1,6 @@
 """Background (task-parallel) global bundle adjustment.
 
-TPU-native re-expression of the reference's GBA thread
+JAX-native re-expression of the reference's GBA thread
 (``LoopClosing::RunGlobalBundleAdjustment``, src/LoopClosing.cc:3579-3831):
 the reference spawns a std::thread that runs a 10-iteration g2o GBA
 concurrently with tracking/mapping, abortable via ``mbStopGBA``, and on

@@ -139,14 +139,21 @@ def track_pose(ms: S.MapState, frame: FrameObs, feat_mp, q0, t0,
 # triangulation (LocalMapping::CreateNewMapPoints, one neighbor pair)
 # ---------------------------------------------------------------------------
 
+def _mm(a, b):
+    """Full-float32 matmul: the epipolar search and the DLT gates compare
+    pixel residuals against chi2 thresholds, and a TF32 product (about
+    three decimal digits) moves them across."""
+    return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
+
+
 def _fundamental_from_poses(q1, t1, q2, t2, K1, K2):
     """F12 with x2^T F12 x1 = 0 for cams (T_cw1) and (T_cw2)."""
     R1 = lie.quat_to_matrix(q1)
     R2 = lie.quat_to_matrix(q2)
-    R12 = R2 @ R1.T                       # cam1 -> cam2
-    t12 = t2 - R12 @ t1
-    E = lie.hat(t12) @ R12                # x2c^T E x1c = 0
-    return jnp.linalg.inv(K2).T @ E @ jnp.linalg.inv(K1)
+    R12 = _mm(R2, R1.T)                   # cam1 -> cam2
+    t12 = t2 - _mm(R12, t1)
+    E = _mm(lie.hat(t12), R12)            # x2c^T E x1c = 0
+    return _mm(_mm(jnp.linalg.inv(K2).T, E), jnp.linalg.inv(K1))
 
 
 def triangulate_with_neighbor(ms: S.MapState, kf1, kf2,
@@ -189,23 +196,23 @@ def triangulate_with_neighbor(ms: S.MapState, kf1, kf2,
     idx2 = jnp.clip(res.idx, 0)
     R1 = lie.quat_to_matrix(q1)
     R2 = lie.quat_to_matrix(q2)
-    P1 = K1 @ jnp.concatenate([R1, t1[:, None]], axis=1)
-    P2 = K2 @ jnp.concatenate([R2, t2[:, None]], axis=1)
+    P1 = _mm(K1, jnp.concatenate([R1, t1[:, None]], axis=1))
+    P2 = _mm(K2, jnp.concatenate([R2, t2[:, None]], axis=1))
     X = twoview.triangulate_dlt(
         jnp.broadcast_to(P1, (F, 3, 4)), jnp.broadcast_to(P2, (F, 3, 4)),
         uv1_g, uv2_g[idx2])
 
     # gates (reference CreateNewMapPoints :504-828)
-    C1 = -R1.T @ t1
-    C2 = -R2.T @ t2
+    C1 = -_mm(R1.T, t1)
+    C2 = -_mm(R2.T, t2)
     r1 = X - C1
     r2 = X - C2
     d1 = jnp.linalg.norm(r1, axis=-1)
     d2 = jnp.linalg.norm(r2, axis=-1)
     cos_par = jnp.sum(r1 * r2, axis=-1) / jnp.maximum(d1 * d2, 1e-9)
 
-    Xc1 = X @ R1.T + t1
-    Xc2 = X @ R2.T + t2
+    Xc1 = _mm(X, R1.T) + t1
+    Xc2 = _mm(X, R2.T) + t2
     z_ok = (Xc1[:, 2] > 1e-3) & (Xc2[:, 2] > 1e-3)
 
     pr1 = cam_mod.project_ideal(cam1, Xc1)
@@ -433,9 +440,9 @@ def build_window_problem(ms: S.MapState, opt_mask, inv_sigma2,
     """Assemble a ``WindowProblem`` (solvers/ba_window.py): free cameras
     compacted to ``[cam_cap]``, window points to ``[pt_cap]``, edges laid
     out densely camera-major ``[Kc, F]`` AND point-major ``[Pw, M]`` from
-    the reverse-observation table.  Deliberately SCATTER-FREE (XLA:TPU
-    serializes duplicate-index scatters): compactions are stable argsorts,
-    the cm<->pm edge bridge is a dense [Kc, F, M] compare at build, and
+    the reverse-observation table.  Deliberately SCATTER-FREE (duplicate-
+    index scatters serialize or need atomics): compactions are stable
+    argsorts, the cm<->pm edge bridge is a dense [Kc, F, M] compare at build, and
     write-back (apply_window_result) is pure gathers through the
     arena-sized slot maps.
 
@@ -463,7 +470,7 @@ def build_window_problem(ms: S.MapState, opt_mask, inv_sigma2,
 
     # --- window points: observed by an effective-free KF.  Computed from
     # the reverse-observation table (gather + reduce over M — the forward
-    # [K*F] scatter-max this replaces serializes on TPU).
+    # [K*F] scatter-max this replaces needs atomics).
     obs_ok = ((jnp.arange(Mo)[None, :] < ms.mp_nobs[:, None])
               & (ms.mp_obs_kf >= 0))
     pt_free = jnp.any(obs_ok & eff_free[jnp.clip(ms.mp_obs_kf, 0)],
@@ -590,7 +597,7 @@ def apply_window_result(ms: S.MapState, prob, res,
     ms = ms._replace(kf_q=kf_q, kf_t=kf_t, mp_pos=mp_pos)
     if drop_pm is not None:
         # one scatter with UNIQUE indices (inactive edges routed to a
-        # private scratch slot each) — vectorizes on TPU
+        # private scratch slot each) — no atomics needed
         Pw, Mo = drop_pm.shape
         nflat = K * F
         eidx = jnp.arange(Pw * Mo, dtype=jnp.int32)

@@ -1,6 +1,6 @@
 """Batched Gauss-Newton / Levenberg-Marquardt bundle adjustment.
 
-TPU-native replacement for the reference's g2o-based ``src/Optimizer.cc``
+JAX-native replacement for the reference's g2o-based ``src/Optimizer.cc``
 (SURVEY.md §2.5): motion-only pose optimization, windowed local BA, and
 full-map global BA — all expressed as one fixed-shape, mask-aware LM solver.
 
@@ -13,7 +13,7 @@ Design (SURVEY.md §7 "g2o -> batched GN/LM"):
   by **matrix-free Schur-complement PCG**: the reduced camera system
   ``S = Hcc - W Hpp^-1 W^T`` is never formed — ``S v`` is computed edge-wise
   with two segment-sums, preconditioned by the block-Jacobi of S.  This maps
-  to MXU batched matmuls + XLA scatter-adds and, unlike g2o's sequential
+  to batched small matmuls + XLA scatter-adds and, unlike g2o's sequential
   sparse Cholesky, parallelizes over everything; per-block reductions become
   ``psum`` when sharded (parallel/).
 * Robustness follows the reference: Huber(sqrt(5.991)) on the whitened
@@ -31,6 +31,7 @@ import jax.numpy as jnp
 
 from mam3slam_tpu.geometry import lie
 from mam3slam_tpu.geometry import cameras as cam_mod
+from mam3slam_tpu.ops import platform
 
 CHI2_MONO = 5.991  # 2-DoF 95% (reference thresholds throughout)
 
@@ -94,7 +95,7 @@ def _segsum(vals: jnp.ndarray, idx: jnp.ndarray, n: int,
             axis_name=None) -> jnp.ndarray:
     """Segment-sum of per-edge values into vertex arrays.  Under shard_map
     with edges sharded along `axis_name`, the partial sums are psum-reduced
-    so every device holds the full vertex arrays (the ICI collective of the
+    so every device holds the full vertex arrays (the interconnect collective of the
     distributed BA — SURVEY.md §2.6/§2.8 'Schur-block parallelism')."""
     out = jnp.zeros((n,) + vals.shape[1:], vals.dtype).at[idx].add(vals)
     if axis_name is not None:
@@ -291,10 +292,10 @@ class PoseOptResult(NamedTuple):
 
 
 @functools.partial(jax.jit,
-                   static_argnames=("kind", "rounds", "iters", "use_pallas"))
+                   static_argnames=("kind", "rounds", "iters", "use_kernel"))
 def pose_optimization(q0, t0, cam_params, kind: int, pts, uv, w, valid,
                       rounds: int = 4, iters: int = 5,
-                      use_pallas: bool = True) -> PoseOptResult:
+                      use_kernel: bool = True) -> PoseOptResult:
     """Motion-only BA: one SE3 vertex, unary reprojection edges.
 
     Mirrors the reference's 4 optimization rounds with chi2=5.991
@@ -305,26 +306,36 @@ def pose_optimization(q0, t0, cam_params, kind: int, pts, uv, w, valid,
     early-terminates; convergence here is complete by ~4 — verified to
     give identical poses on the solver tests).
 
-    On TPU with a PINHOLE camera the whole optimization runs as one fused
-    Pallas kernel (ops/pallas_pose.py) — the XLA path below is the
-    reference implementation and the fallback for KB8 / CPU.
+    With a PINHOLE camera, ``ops.platform`` picks the implementation for
+    the device the program is lowered for: the fused Triton kernel
+    (ops/pallas_pose.py) on CUDA, the XLA path below elsewhere.
+    ``use_kernel=False`` pins the XLA path (the reference for parity
+    checks and kernel A/B timings).
     """
-    delta2 = CHI2_MONO
+    xla = functools.partial(_pose_optimization_xla, kind=kind,
+                            rounds=rounds, iters=iters)
+    if not use_kernel or kind != cam_mod.PINHOLE:
+        return xla(q0, t0, cam_params, pts, uv, w, valid)
 
-    # Pallas kernel only on the plain unbatched path: under jax.vmap the
-    # per-example ndim is still 2 but pallas_call would be batched with
-    # SMEM in/out specs on the Mosaic path (untested) — callers that vmap
-    # (parallel/dist_ba.batched_pose_optimization) pass use_pallas=False.
-    if use_pallas and kind == cam_mod.PINHOLE and pts.ndim == 2 and (
-            jax.default_backend() not in ("cpu",)):
+    def fused(q0, t0, cam_params, pts, uv, w, valid):
         from mam3slam_tpu.ops import pallas_pose
 
-        R0 = lie.quat_to_matrix(q0)
         R, t, inlier, n = pallas_pose.pose_optimization_pinhole(
-            R0, t0, cam_params[:4], pts, uv, w, valid,
+            lie.quat_to_matrix(q0), t0, cam_params[:4], pts, uv, w, valid,
             rounds=rounds, iters=iters)
         return PoseOptResult(q=lie.quat_from_matrix(R), t=t,
                              inlier=inlier, n_inliers=n)
+
+    return platform.dispatch("pose", {platform.XLA: xla,
+                                      platform.TRITON: fused},
+                             q0, t0, cam_params, pts, uv, w, valid)
+
+
+def _pose_optimization_xla(q0, t0, cam_params, pts, uv, w, valid, *,
+                           kind: int, rounds: int,
+                           iters: int) -> PoseOptResult:
+    """The XLA form of ``pose_optimization``."""
+    delta2 = CHI2_MONO
 
     def linearize(q, t):
         Xc = lie.quat_rotate(q[None, :], pts) + t[None, :]
@@ -366,8 +377,11 @@ def pose_optimization(q0, t0, cam_params, kind: int, pts, uv, w, valid,
             w_rob = _huber_w(chi2, delta2) if robust else jnp.ones_like(chi2)
             we = jnp.where(active & depth_ok, w * w_rob, 0.0)
             wJ = Jc * we[:, None, None]
-            H = jnp.einsum("eik,eij->kj", wJ, Jc)
-            g = jnp.einsum("eij,ei->j", wJ, r)
+            # full float32: a TF32 product would move the 6x6 solve
+            H = jnp.einsum("eik,eij->kj", wJ, Jc,
+                           precision=jax.lax.Precision.HIGHEST)
+            g = jnp.einsum("eij,ei->j", wJ, r,
+                           precision=jax.lax.Precision.HIGHEST)
             H = H + (lam * jnp.maximum(jnp.diag(H), 1e-6)
                      + 1e-8) * jnp.eye(6)
             dx = jnp.linalg.solve(H, -g)

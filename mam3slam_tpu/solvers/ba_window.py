@@ -1,16 +1,14 @@
 """Scatter-free windowed / global bundle adjustment (dense two-view Schur).
 
-TPU-native second-generation BA core replacing the edge-list formulation in
+JAX-native second-generation BA core replacing the edge-list formulation in
 ``solvers/ba.py`` for the windowed-LBA / welding-BA / global-BA paths
 (reference ``Optimizer::LocalBundleAdjustment`` src/Optimizer.cc:1116, merge
 overload :3505, ``GlobalBundleAdjustemnt`` :52).
 
 Why a second formulation: the edge-list solver reduces per-vertex blocks
 with ``.at[].add`` scatter-adds over arena-sized arrays — hundreds of them
-per solve inside the CG loop.  XLA:TPU lowers duplicate-index scatters to
-serialized sort-based updates; profiling showed they dominate the measured
-3.1 s LBA epoch (4.4k live edges doing 24k-point-arena scatters, 360 CG
-iterations).  Here the observation structure is laid out DENSELY in both
+per solve inside the CG loop, and duplicate-index scatters serialize (or
+need atomics) on an accelerator.  Here the observation structure is laid out DENSELY in both
 directions once, so every reduction in the hot loop is a plain ``sum`` over
 a trailing axis and every irregular access is a dense gather:
 
@@ -145,8 +143,8 @@ def _gather_cm(flat, cslot, feat, F):
 
 def _spd_inv3(A):
     """Closed-form cofactor inverse of batched 3x3 SPD blocks — fully
-    vectorized (jnp.linalg.inv lowers to pivoted LU loops on TPU, which
-    serializes over the 8k-point batch)."""
+    vectorized (a batched pivoted LU would loop over the 3 pivots with
+    data-dependent row swaps for every point of the batch)."""
     A = A + 1e-8 * jnp.eye(3, dtype=A.dtype)
     a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
     d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
@@ -388,16 +386,17 @@ def run_window_ba(prob: WindowProblem, kind: int, iters: int = 10,
 
 
 # ---------------------------------------------------------------------------
-# dense reduced-camera path (single chip; no CG)
+# dense reduced-camera path (single device; no CG)
 #
 # Layout note: the per-edge math runs in FLAT SoA form — every per-edge
-# scalar is its own 1-D [E] array (E = Pw * M).  TPU tiles the minor two
-# dims of every buffer to (8, 128); tensors shaped [Pw, M, 2, 3] pad
-# (2, 3) -> (8, 128), a ~42x memory bloat that made the einsum
-# formulation bandwidth-bound at ~13% of its roofline (measured: 10.4 ms
-# per LM iteration; the SoA form ~3x faster).  Small matrices appear only
-# at reduction boundaries, where XLA relayouts for the MXU anyway.
+# scalar is its own 1-D [E] array (E = Pw * M), so elementwise chains fuse
+# into a few wide kernels.  Small matrices appear only at reduction
+# boundaries.  Every matmul there pins ``precision=HIGHEST``: the one-hot
+# reductions and the Schur coupling feed a Cholesky, and a TF32 product
+# (about three decimal digits) breaks it.
 # ---------------------------------------------------------------------------
+
+_HI = jax.lax.Precision.HIGHEST
 
 
 class _EdgeConsts(NamedTuple):
@@ -556,7 +555,7 @@ def _lm_iteration_dense(prob: WindowProblem, consts: _EdgeConsts, kind,
     The implicit-Schur CG solver spends ~1 ms per CG matvec on chains of
     small-tensor ops; at window scale (Kc <= ~128 free cameras) the reduced
     system is only [6Kc, 6Kc], so it is far cheaper to FORM it explicitly —
-    every reduction is a one-hot matmul that rides the MXU — and factor it
+    every reduction is a one-hot matmul — and factor it
     with one dense Cholesky.  Per iteration (SoA, see layout note above):
 
       Hcc[k]   = sum_e 1[c_e=k] Jc^T W Jc          (one-hot matmul)
@@ -604,7 +603,7 @@ def _lm_iteration_dense(prob: WindowProblem, consts: _EdgeConsts, kind,
     S_e = jnp.stack(cols + tri, axis=-1)                   # [E, 27]
     O = ((c.cslot[:, None] == jnp.arange(Kc, dtype=jnp.int32))
          & c.is_free[:, None]).astype(jnp.float32)         # [E, Kc]
-    red = O.T @ S_e                                        # [Kc, 27]
+    red = jnp.matmul(O.T, S_e, precision=_HI)              # [Kc, 27]
     g_c = red[:, :6]
     iu = jnp.asarray(
         [[0, 1, 2, 3, 4, 5], [1, 6, 7, 8, 9, 10], [2, 7, 11, 12, 13, 14],
@@ -617,7 +616,8 @@ def _lm_iteration_dense(prob: WindowProblem, consts: _EdgeConsts, kind,
           for a in range(6) for b in range(3)]
     Wstack = jnp.stack(wb, axis=-1)                        # [E, 18]
     Z = jnp.einsum("pmk,pmj->pkj", O.reshape(Pw, M, Kc),
-                   Wstack.reshape(Pw, M, 18)).reshape(Pw, Kc, 6, 3)
+                   Wstack.reshape(Pw, M, 18),
+                   precision=_HI).reshape(Pw, Kc, 6, 3)
 
     def damp(H, free, dim):
         diag = jnp.diagonal(H, axis1=-2, axis2=-1)
@@ -629,17 +629,18 @@ def _lm_iteration_dense(prob: WindowProblem, consts: _EdgeConsts, kind,
     Hcc_l = damp(Hcc, prob.cam_valid, 6)
     Hpp_inv = _spd_inv3(damp(Hpp, prob.pt_valid, 3))
 
-    # explicit Schur coupling via one big MXU matmul
+    # explicit Schur coupling via one big matmul
     L = _chol3(Hpp_inv)                                    # [Pw, 3, 3]
-    Zl = jnp.einsum("pkab,pbc->pkac", Z, L)
+    Zl = jnp.einsum("pkab,pbc->pkac", Z, L, precision=_HI)
     Zf = Zl.transpose(0, 3, 1, 2).reshape(Pw * 3, Kc * 6)
-    C = Zf.T @ Zf                                          # [6Kc, 6Kc]
+    C = jnp.matmul(Zf.T, Zf, precision=_HI)                # [6Kc, 6Kc]
 
     ii = jnp.arange(Kc)
     H_red = (-C).reshape(Kc, 6, Kc, 6).at[ii, :, ii, :].add(
         Hcc_l, unique_indices=True).reshape(Kc * 6, Kc * 6)
-    z0 = jnp.einsum("pab,pb->pa", Hpp_inv, g_p)
-    b = -g_c + jnp.einsum("pkab,pb->ka", Z, z0)            # [Kc, 6]
+    z0 = jnp.einsum("pab,pb->pa", Hpp_inv, g_p, precision=_HI)
+    b = -g_c + jnp.einsum("pkab,pb->ka", Z, z0,
+                          precision=_HI)                   # [Kc, 6]
 
     chol = jax.scipy.linalg.cho_factor(H_red)
     dx = jax.scipy.linalg.cho_solve(chol, b.reshape(-1)).reshape(Kc, 6)
@@ -651,7 +652,7 @@ def _lm_iteration_dense(prob: WindowProblem, consts: _EdgeConsts, kind,
     u = jnp.stack(
         [msum(sum(wb[a * 3 + b0] * vc[a] for a in range(6)))
          for b0 in range(3)], axis=-1)                     # [Pw, 3]
-    dx_p = jnp.einsum("pab,pb->pa", Hpp_inv, -g_p - u)
+    dx_p = jnp.einsum("pab,pb->pa", Hpp_inv, -g_p - u, precision=_HI)
     dx_p = jnp.where(prob.pt_valid[:, None], dx_p, 0.0)
     dx_p = jnp.where(jnp.isfinite(dx_p), dx_p, 0.0)
 

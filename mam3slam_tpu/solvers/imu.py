@@ -1,6 +1,6 @@
 """IMU preintegration on manifold (Forster et al. / ORB-SLAM3 style).
 
-TPU-native replacement for the reference's ``src/ImuTypes.cc`` (SURVEY.md
+JAX-native replacement for the reference's ``src/ImuTypes.cc`` (SURVEY.md
 §2.5): ``IntegrateNewMeasurement`` (deltaR/V/P, 15x15 covariance, bias
 jacobians), re-integration under new bias estimates, and bias-corrected
 delta getters.  The reference plumbs IMU through Tracking but its

@@ -1,17 +1,17 @@
 """Sim3 pose-graph optimization (essential graph).
 
-TPU-native replacement for ``Optimizer::OptimizeEssentialGraph``
+JAX-native replacement for ``Optimizer::OptimizeEssentialGraph``
 (reference src/Optimizer.cc:1501-1783): after a loop closure, keyframe
 poses are optimized as Sim3 vertices over an edge set of loop connections,
 spanning-tree edges, existing loop/merge edges, and strong covisibility
 edges; map points are then corrected via their reference keyframe's
 before/after transform.
 
-TPU design: edges are a flat array; per-edge residuals
+Design: edges are a flat array; per-edge residuals
 ``r = log(S_ij * S_j * S_i^-1)`` and their 7x7 tangent jacobians come from
 one batched forward-mode autodiff; the Gauss-Newton normal system is
 assembled with segment-sums into dense [7K, 7K] and solved by Cholesky —
-for SLAM-scale K (<= a few thousand) a dense MXU solve beats any sparse
+for SLAM-scale K (<= a few thousand) a dense solve beats any sparse
 factorization, and it shards over the mesh with psum just like ba.py.
 """
 
@@ -23,6 +23,10 @@ import jax
 import jax.numpy as jnp
 
 from mam3slam_tpu.geometry import lie
+
+# the dense normal equations feed a Cholesky: keep their products in full
+# float32 (a TF32 product keeps about three decimal digits)
+_HI = jax.lax.Precision.HIGHEST
 
 
 class PGOEdges(NamedTuple):
@@ -100,11 +104,11 @@ def optimize_essential_graph(q_kw, t_kw, s_kw, fixed, edges: PGOEdges,
         Jj = Jj * free_j[:, None, None]
 
         # assemble dense H [7K, 7K], g [7K]
-        Hii = jnp.einsum("eki,ekj,e->eij", Ji, Ji, w)
-        Hjj = jnp.einsum("eki,ekj,e->eij", Jj, Jj, w)
-        Hij = jnp.einsum("eki,ekj,e->eij", Ji, Jj, w)
-        gi = jnp.einsum("eki,ek,e->ei", Ji, r, w)
-        gj = jnp.einsum("eki,ek,e->ei", Jj, r, w)
+        Hii = jnp.einsum("eki,ekj,e->eij", Ji, Ji, w, precision=_HI)
+        Hjj = jnp.einsum("eki,ekj,e->eij", Jj, Jj, w, precision=_HI)
+        Hij = jnp.einsum("eki,ekj,e->eij", Ji, Jj, w, precision=_HI)
+        gi = jnp.einsum("eki,ek,e->ei", Ji, r, w, precision=_HI)
+        gj = jnp.einsum("eki,ek,e->ei", Jj, r, w, precision=_HI)
 
         H = jnp.zeros((K, K, 7, 7))
         H = H.at[edges.i, edges.i].add(Hii)
@@ -218,11 +222,11 @@ def optimize_essential_graph_4dof(q_kw, t_kw, fixed,
         Ji = Ji * (~fixed[edges.i])[:, None, None]
         Jj = Jj * (~fixed[edges.j])[:, None, None]
 
-        Hii = jnp.einsum("eki,ekj,e->eij", Ji, Ji, w)
-        Hjj = jnp.einsum("eki,ekj,e->eij", Jj, Jj, w)
-        Hij = jnp.einsum("eki,ekj,e->eij", Ji, Jj, w)
-        gi = jnp.einsum("eki,ek,e->ei", Ji, r, w)
-        gj = jnp.einsum("eki,ek,e->ei", Jj, r, w)
+        Hii = jnp.einsum("eki,ekj,e->eij", Ji, Ji, w, precision=_HI)
+        Hjj = jnp.einsum("eki,ekj,e->eij", Jj, Jj, w, precision=_HI)
+        Hij = jnp.einsum("eki,ekj,e->eij", Ji, Jj, w, precision=_HI)
+        gi = jnp.einsum("eki,ek,e->ei", Ji, r, w, precision=_HI)
+        gj = jnp.einsum("eki,ek,e->ei", Jj, r, w, precision=_HI)
 
         H = jnp.zeros((K, K, 4, 4))
         H = H.at[edges.i, edges.i].add(Hii)

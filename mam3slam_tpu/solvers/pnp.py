@@ -1,6 +1,6 @@
 """Absolute pose from 2D-3D correspondences (PnP) with batched RANSAC.
 
-TPU-native replacement for the reference's ``src/MLPnPsolver.cpp``
+JAX-native replacement for the reference's ``src/MLPnPsolver.cpp``
 (maximum-likelihood PnP inside RANSAC, used only by
 ``Tracking::Relocalization`` — SURVEY.md §2.5).  Hypotheses come from a
 batched DLT linear solve (6+ points, all RANSAC samples in one SVD); the

@@ -1,12 +1,12 @@
 """Sim3 estimation: Horn closed-form, batched RANSAC, and Sim3 refinement.
 
-TPU-native replacement for the reference's ``src/Sim3Solver.cc`` (Horn-1987
+JAX-native replacement for the reference's ``src/Sim3Solver.cc`` (Horn-1987
 absolute orientation inside RANSAC over 3-point samples) and
 ``Optimizer::OptimizeSim3`` (src/Optimizer.cc:2115 — bidirectional Sim3
 reprojection GN with Huber and inlier pruning).  Used by loop closing and
 map merging to align keyframe pairs across maps (monocular => scale free).
 
-TPU design: all RANSAC hypotheses are computed in one batched closed-form
+Design: all RANSAC hypotheses are computed in one batched closed-form
 solve and scored with one fused reduction — no sequential iterate() loop.
 """
 
@@ -47,7 +47,8 @@ def horn_sim3(p1: jnp.ndarray, p2: jnp.ndarray, w=None, fix_scale=False):
     q2 = p2 - c2[..., None, :]
 
     # cross-covariance M = sum w q1 q2^T
-    Mm = jnp.einsum("...ni,...nj,...n->...ij", q1, q2, wn)
+    Mm = jnp.einsum("...ni,...nj,...n->...ij", q1, q2, wn,
+                    precision=jax.lax.Precision.HIGHEST)
     Sxx, Sxy, Sxz = Mm[..., 0, 0], Mm[..., 0, 1], Mm[..., 0, 2]
     Syx, Syy, Syz = Mm[..., 1, 0], Mm[..., 1, 1], Mm[..., 1, 2]
     Szx, Szy, Szz = Mm[..., 2, 0], Mm[..., 2, 1], Mm[..., 2, 2]
@@ -193,8 +194,10 @@ def optimize_sim3(q12, t12, s12, pc1, pc2, uv1, uv2, valid,
                        jnp.sqrt(huber2 / jnp.maximum(chi, 1e-12)))
         w = jnp.where(act2, wh, 0.0)
         wr = jnp.repeat(w, 2)
-        H = J.T @ (J * wr[:, None])
-        g = J.T @ (r * wr)
+        # full float32: the 7x7 solve amplifies TF32 rounding
+        H = jnp.matmul(J.T, J * wr[:, None],
+                       precision=jax.lax.Precision.HIGHEST)
+        g = jnp.matmul(J.T, r * wr, precision=jax.lax.Precision.HIGHEST)
         H = H + 1e-6 * jnp.eye(7)
         if fix_scale:
             H = H.at[6, 6].add(1e6)

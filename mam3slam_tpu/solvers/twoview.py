@@ -1,11 +1,11 @@
 """Monocular two-view reconstruction: batched H/F RANSAC + cheirality.
 
-TPU-native replacement for the reference's ``src/TwoViewReconstruction.cc``
+JAX-native replacement for the reference's ``src/TwoViewReconstruction.cc``
 (SURVEY.md §2.4): 200-iteration RANSAC over 8-point samples computing
 homography and fundamental hypotheses *in parallel*, model selection by
 score ratio, motion-and-structure recovery with cheirality checks.
 
-TPU design: instead of the reference's sequential RANSAC loop, all 200
+Design: instead of the reference's sequential RANSAC loop, all 200
 samples are drawn up front and all 200 H- and F-hypotheses are estimated
 with one batched SVD and scored with one [R, N] fused reduction.  Motion
 recovery evaluates all candidate (R, t) hypotheses (4 from E, 8 from H via

@@ -1,6 +1,6 @@
 """Visual-inertial optimization family.
 
-TPU-native equivalents of the reference's inertial g2o graphs
+JAX-native equivalents of the reference's inertial g2o graphs
 (``src/Optimizer.cc``: FullInertialBA :392, LocalInertialBA :2390,
 PoseInertialOptimizationLastKeyFrame/LastFrame :4498/:4882,
 InertialOptimization :3049/:3234/:3396, MergeInertialBA :3955; vertex/edge

@@ -2,7 +2,7 @@
 //
 // The reference's data path is C++ ROS image subscribers feeding the
 // tracking thread (Examples/ROS/MAM3SLAM/nodes/ros_mono_multi.cc:93-122 —
-// SURVEY.md §2.7).  This is the TPU build's native equivalent for dataset
+// SURVEY.md §2.7).  This is this build's native equivalent for dataset
 // replay: a background thread decodes 8-bit grayscale PNGs (EuRoC format)
 // ahead of the consumer into a bounded ring, so image decode overlaps
 // device compute.  Decode is zlib inflate + PNG row-filter reversal —

@@ -46,9 +46,15 @@ def test_load_settings_pinhole(tmp_path):
     assert cam.kind == 0
 
 
-def test_load_settings_reference_fixture():
+def test_load_settings_reference_fixture(tmp_path):
     """Parse the reference's own KB8 test fixture."""
-    st = S.load_settings("/root/reference/test/settingsForTest_00.yaml")
+    import sys as _sys
+    _sys.path.insert(0, os.path.dirname(__file__))
+    from test_settings_parser import KB8_FIXTURE
+
+    p = tmp_path / "settingsForTest_00.yaml"
+    p.write_text(KB8_FIXTURE)
+    st = S.load_settings(str(p))
     assert st.camera_type == "KannalaBrandt8"
     assert st.width == 960 and st.height == 960
     assert st.n_features == 700

@@ -9,7 +9,8 @@ import pytest
 
 from mam3slam_tpu.io import euroc
 
-pytestmark = pytest.mark.slow  # full-suite tier; smoke = -m "not slow"
+# full-suite tier; smoke = -m "not slow"
+pytestmark = [pytest.mark.slow, pytest.mark.usefixtures("native_libs")]
 
 RNG = np.random.default_rng(51)
 

@@ -8,7 +8,8 @@ import pytest
 
 from mam3slam_tpu.ops import bow
 
-pytestmark = pytest.mark.slow  # full-suite tier; smoke = -m "not slow"
+# full-suite tier; smoke = -m "not slow"
+pytestmark = [pytest.mark.slow, pytest.mark.usefixtures("native_libs")]
 
 
 def _clustered_descs(n_clusters=64, per=80, seed=0):

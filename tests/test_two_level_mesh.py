@@ -1,15 +1,15 @@
-"""Two-level host x chip mesh: the multi-host (DCN) layout, exercised as
+"""Two-level host x chip mesh: the multi-host layout, exercised as
 far as one machine allows.
 
 SURVEY §2.6/§2.8 map the reference's shared-memory fabric onto a
 two-level device mesh: agent front ends data-parallel over the HOST
-(DCN) axis, BA Schur reductions riding the intra-host CHIP (ICI) axis.
-No multi-host hardware exists in this environment, so an 8-virtual-
+(network) axis, BA Schur reductions riding the intra-host CHIP (NVLink)
+axis.  No multi-host hardware is at hand, so an 8-virtual-
 device CPU mesh reshaped to (2 hosts x 4 chips) validates that every
 production distributed program compiles + executes with its collectives
 pinned to ONE named axis of a 2D mesh (replicated over the other) and
-matches single-device results — the exact program a real v5e pod slice
-would run with ('host', 'chip') = (DCN, ICI).
+matches single-device results — the exact program a multi-host GPU
+cluster would run with ('host', 'chip') = (inter-host network, NVLink).
 """
 
 import numpy as np
@@ -52,7 +52,7 @@ def _window_problem(seed=7):
 
 def test_window_ba_collectives_ride_chip_axis():
     """Both production window-BA solvers (dense one-psum, psum-CG) run on
-    the 'chip' axis of a (2,4) mesh — psums stay intra-host (ICI),
+    the 'chip' axis of a (2,4) mesh — psums stay intra-host (NVLink),
     state is replicated over 'host' — and match a 1-device solve."""
     wprob, (oc, op, ouv) = _window_problem()
     mesh1 = Mesh(np.array(jax.devices()[:1]), ("chip",))
@@ -74,7 +74,7 @@ def test_window_ba_collectives_ride_chip_axis():
 
 def test_agents_shard_over_host_axis():
     """The agent-parallel batched pose optimization shards its agent
-    batch over the 'host' (DCN) axis of the same 2D mesh — per-agent
+    batch over the 'host' (network) axis of the same 2D mesh — per-agent
     work never crosses hosts — and matches the unsharded vmap."""
     n_agents = 8
     scenes = [make_scene(n_cams=1, n_pts=150, noise_px=0.4, seed=50 + i)
@@ -100,7 +100,7 @@ def test_agents_shard_over_host_axis():
     out = fn(*args)
     ref = jax.vmap(lambda q0, t0, cp, pts, uv, w, v: ba.pose_optimization(
         q0, t0, cp, cameras.PINHOLE, pts, uv, w, v,
-        use_pallas=False))(*args)
+        use_kernel=False))(*args)
     np.testing.assert_allclose(np.asarray(out.t), np.asarray(ref.t),
                                atol=1e-4)
     assert int(np.asarray(out.n_inliers).min()) > M // 2
